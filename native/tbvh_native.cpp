@@ -1,9 +1,9 @@
-// Native IO runtime for tpu_bvh: fast OBJ mesh loading and PNG output.
+// Native IO runtime for jax_bvh: fast OBJ mesh loading and PNG output.
 //
 // Plays the role of the reference's vendored tinyobjloader
-// (/root/reference/src/tiny_obj_loader.h, used by MeshLoader::loadScene)
+// (the reference's src/tiny_obj_loader.h, used by MeshLoader::loadScene)
 // and stb_image_write (PNG output) — re-implemented from scratch as a thin
-// C ABI consumed from Python via ctypes (tpu_bvh/utils/native.py). The JAX
+// C ABI consumed from Python via ctypes (jax_bvh/utils/native.py). The JAX
 // compute path never touches this; it is host-side IO only.
 //
 // Build: see native/Makefile (produces libtbvh_native.so).

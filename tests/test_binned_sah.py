@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import pytest
 
 from tests.conftest import random_tris
-from tpu_bvh.models import binned_sah, lbvh
-from tpu_bvh.ops import traverse
-from tpu_bvh.utils import scenes, camera, validate
-from tpu_bvh.utils.cost import sah_cost_bvh2
+from jax_bvh.models import binned_sah, lbvh
+from jax_bvh.ops import traverse
+from jax_bvh.utils import scenes, camera, validate
+from jax_bvh.utils.cost import sah_cost_bvh2
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 17, 500])

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tpu_bvh.ops import radix_tree
+from jax_bvh.ops import radix_tree
 
 
 def _codes(n, seed, bits=30):

@@ -4,9 +4,9 @@ import numpy as np
 import pytest
 
 from tests.conftest import random_tris
-from tpu_bvh.models import lbvh
-from tpu_bvh.utils import validate
-from tpu_bvh.utils.cost import sah_cost_bvh2
+from jax_bvh.models import lbvh
+from jax_bvh.utils import validate
+from jax_bvh.utils.cost import sah_cost_bvh2
 
 
 BUILDERS = {

@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tpu_bvh.ops import morton
+from jax_bvh.ops import morton
 
 
 def _spread3(x):
@@ -160,8 +160,8 @@ def test_extended_morton_orders_dominant_axis_first():
 
     # and a valid BVH still comes out either way
     from tests.conftest import random_tris
-    from tpu_bvh.models import lbvh
-    from tpu_bvh.utils import validate
+    from jax_bvh.models import lbvh
+    from jax_bvh.utils import validate
 
     rng = np.random.default_rng(3)
     tris = random_tris(rng, 500, spread=1.0, size=0.05)

@@ -3,8 +3,8 @@ import numpy as np
 import pytest
 
 from tests.conftest import random_tris
-from tpu_bvh.models import batched
-from tpu_bvh.utils import validate
+from jax_bvh.models import batched
+from jax_bvh.utils import validate
 
 
 def test_batched_build(rng):
@@ -19,7 +19,7 @@ def test_batched_build(rng):
 
 def test_batched_sharded(rng):
     import jax
-    from tpu_bvh.parallel import sharded
+    from jax_bvh.parallel import sharded
 
     mesh = sharded.default_mesh()
     b = mesh.devices.size * 4
@@ -32,7 +32,7 @@ def test_batched_sharded(rng):
 
 
 def test_sharded_extents(rng):
-    from tpu_bvh.parallel import sharded
+    from jax_bvh.parallel import sharded
 
     mesh = sharded.default_mesh()
     tris = random_tris(rng, 8 * 100)
@@ -44,10 +44,10 @@ def test_sharded_extents(rng):
 @pytest.mark.slow
 def test_sharded_traversal(rng):
     import jax.numpy as jnp
-    from tpu_bvh.models import lbvh
-    from tpu_bvh.ops import traverse
-    from tpu_bvh.parallel import sharded
-    from tpu_bvh.utils import scenes, camera
+    from jax_bvh.models import lbvh
+    from jax_bvh.ops import traverse
+    from jax_bvh.parallel import sharded
+    from jax_bvh.utils import scenes, camera
 
     tris = jnp.asarray(scenes.cornellbox())
     tr, cam = scenes.preset("cornellbox")
@@ -64,10 +64,10 @@ def test_sharded_traversal(rng):
 @pytest.mark.slow
 def test_sharded_raster_render():
     import jax.numpy as jnp
-    from tpu_bvh.models import lbvh
-    from tpu_bvh.ops import raster, traverse
-    from tpu_bvh.parallel import sharded
-    from tpu_bvh.utils import scenes, camera
+    from jax_bvh.models import lbvh
+    from jax_bvh.ops import raster, traverse
+    from jax_bvh.parallel import sharded
+    from jax_bvh.utils import scenes, camera
 
     tris = jnp.asarray(scenes.cornellbox())
     tr, cam = scenes.preset("cornellbox")
@@ -77,10 +77,7 @@ def test_sharded_raster_render():
     packed = raster.pack_raster(bvh, tris, leaf_size=8)
 
     mesh = sharded.default_mesh(2)
-    hit = sharded.render_raster_sharded(
-        mesh, packed, rays, tr, W, H, interpret=True,
-        cand_cap=32, pair_cap=256, group=4,
-    )
+    hit = sharded.render_raster_sharded(mesh, packed, rays, tr, W, H)
     hit_o, _ = traverse.traverse_bvh2(bvh, tris, rays, tr)
     pk = np.asarray(hit.prim_idx)
     po = np.asarray(hit_o.prim_idx)
@@ -89,13 +86,37 @@ def test_sharded_raster_render():
     assert np.allclose(np.asarray(hit.t)[mask], np.asarray(hit_o.t)[mask], rtol=1e-4)
 
 
+def test_sharded_raster_leaves_no_tracer(monkeypatch):
+    """The sharded render runs its shard_map under jit. Run eagerly, a
+    shard_map that reaches the Triton kernel leaves a shard_map tracer
+    behind, and the next one-device render fails on it instead of lowering.
+    The compiled kernel cannot lower on the CPU, so both calls must raise
+    that error and no other."""
+    import jax.numpy as jnp
+    from jax_bvh.models import lbvh
+    from jax_bvh.ops import raster
+    from jax_bvh.parallel import sharded
+    from jax_bvh.utils import scenes, camera
+
+    monkeypatch.setattr(raster, "raster_engine", lambda: "triton")
+    tris = jnp.asarray(scenes.cornellbox())
+    tr, cam = scenes.preset("cornellbox")
+    W, H = 256, 64
+    rays = camera.generate_rays(cam, W, H)
+    packed = raster.pack_raster(lbvh.build_two_pass(tris), tris, leaf_size=8)
+    with pytest.raises(ValueError, match="interpret"):
+        sharded.render_raster_sharded(sharded.default_mesh(4), packed, rays, tr, W, H)
+    with pytest.raises(ValueError, match="interpret"):
+        raster.render_raster(packed, rays, tr, W, H)
+
+
 @pytest.mark.slow
 def test_batched_small_matches_vmapped_single_pass(rng):
     """The dense all-pairs small-capacity path must produce bit-identical
     trees to the vmapped generic single-pass builder."""
     import jax
     import numpy as np
-    from tpu_bvh.models import batched, lbvh
+    from jax_bvh.models import batched, lbvh
 
     meshes = [random_tris(rng, int(n)) for n in rng.integers(2, 33, size=24)]
     tris_b, _ = batched.pad_meshes(meshes)

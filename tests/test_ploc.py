@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import pytest
 
 from tests.conftest import random_tris
-from tpu_bvh.models import lbvh, ploc
-from tpu_bvh.ops import collapse, traverse
-from tpu_bvh.utils import validate, scenes, camera
-from tpu_bvh.utils.cost import sah_cost_bvh2
+from jax_bvh.models import lbvh, ploc
+from jax_bvh.ops import collapse, traverse
+from jax_bvh.utils import validate, scenes, camera
+from jax_bvh.utils.cost import sah_cost_bvh2
 
 BUILDERS = {"ploc": ploc.build_ploc, "hploc": ploc.build_hploc}
 

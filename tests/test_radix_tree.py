@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from tpu_bvh.ops import radix_tree
-from tpu_bvh.utils.validate import reference_radix_tree_ranges
+from jax_bvh.ops import radix_tree
+from jax_bvh.utils.validate import reference_radix_tree_ranges
 
 
 def _ranges_from_topology(left, right, n):

@@ -9,10 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_bvh.models import lbvh
-from tpu_bvh.ops import raster, traverse
-from tpu_bvh.types import Transformation
-from tpu_bvh.utils import camera, scenes
+from jax_bvh.models import lbvh
+from jax_bvh.ops import raster, traverse
+from jax_bvh.utils import camera, scenes
 
 
 def _check_match(hit_r, hit_o, rays, tris, tr, rtol=1e-4):
@@ -108,7 +107,7 @@ def test_cone_vs_aabb_oracle():
         bmax = jnp.asarray(c + half)
         possible, t_lb = raster._cone_vs_aabb(eye, dmin, dmax, bmin, bmax)
         # brute force: does any sampled ray hit?
-        from tpu_bvh.ops import aabb as A
+        from jax_bvh.ops import aabb as A
 
         inv = 1.0 / jnp.asarray(ds)
         tn, tf = A.slab_intersect(
@@ -135,7 +134,7 @@ def test_moller_coefs_match_intersect_triangle():
     den = planes[..., 3]
     safe = jnp.where(den != 0, den, 1.0)
 
-    from tpu_bvh.ops import aabb as A
+    from jax_bvh.ops import aabb as A
 
     u_o, v_o, w_o, t_o = A.intersect_triangle(
         tris[None, :, 0],

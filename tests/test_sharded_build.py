@@ -9,10 +9,10 @@ pytestmark = pytest.mark.slow
 import jax
 import jax.numpy as jnp
 
-from tpu_bvh.models import lbvh
-from tpu_bvh.parallel import sharded_build
-from tpu_bvh.parallel.sharded import default_mesh
-from tpu_bvh.utils import scenes, validate
+from jax_bvh.models import lbvh
+from jax_bvh.parallel import sharded_build
+from jax_bvh.parallel.sharded import default_mesh
+from jax_bvh.utils import scenes, validate
 
 
 def _compare(tris_np, p=8):

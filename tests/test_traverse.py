@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import pytest
 
 from tests.conftest import random_tris
-from tpu_bvh.models import lbvh
-from tpu_bvh.ops import traverse
-from tpu_bvh.types import Rays, Transformation
-from tpu_bvh.utils import cpu_reference, scenes, camera
+from jax_bvh.models import lbvh
+from jax_bvh.ops import traverse
+from jax_bvh.types import Rays, Transformation
+from jax_bvh.utils import cpu_reference, scenes, camera
 
 VARIANTS = ["if_if", "while_while", "speculative", "restart_trail"]
 
@@ -114,7 +114,7 @@ def _caterpillar_bvh(n_leaves=64, hot_prim=60):
     at every level. Only `hot_prim`'s triangle crosses the probe ray, and
     its leaf is pushed at depth > STACK_DEPTH — a silent-drop engine returns
     a miss."""
-    from tpu_bvh.types import Bvh2
+    from jax_bvh.types import Bvh2
 
     n = n_leaves
     ni = n - 1

@@ -1,22 +1,26 @@
 """Drive the library end-to-end through its public API: load the cornellbox,
 build both LBVH variants, collapse, traverse with all four variants, render
-PNGs."""
+PNGs into renders/.
+
+    PYTHONPATH=. python tools/e2e_drive.py
+"""
 import os, time
 import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import jax.numpy as jnp
 
-from tpu_bvh.utils import scenes, camera, image
-from tpu_bvh.models import lbvh
-from tpu_bvh.ops import traverse, collapse
-from tpu_bvh.utils.cost import sah_cost_bvh2, sah_cost_bvh4
-from tpu_bvh.ops.aabb import triangle_aabbs
+from jax_bvh.utils import scenes, camera, image
+from jax_bvh.models import lbvh
+from jax_bvh.ops import traverse, collapse
+from jax_bvh.utils.cost import sah_cost_bvh2, sah_cost_bvh4
+from jax_bvh.ops.aabb import triangle_aabbs
 
 tris_np = scenes.cornellbox()
 print("cornellbox tris:", tris_np.shape)
 tris = jnp.asarray(tris_np)
 
+os.makedirs("renders", exist_ok=True)
 t, cam = scenes.preset("cornellbox")
 W = H = 256
 rays = camera.generate_rays(cam, W, H)
@@ -46,13 +50,13 @@ for v, h in hits.items():
 print("all 4 traversal variants agree")
 
 img = image.shade_barycentric(base.prim_idx, base.u, base.v, W, H)
-image.write_png("/tmp/cornell_render.png", img)
+image.write_png("renders/cornell_render.png", img)
 hm = image.heatmap(counts, W, H)
-image.write_png("/tmp/cornell_heatmap.png", hm)
-print("wrote /tmp/cornell_render.png /tmp/cornell_heatmap.png")
+image.write_png("renders/cornell_heatmap.png", hm)
+print("wrote renders/cornell_render.png renders/cornell_heatmap.png")
 
 # raster fast path must agree with the wavefront engines
-from tpu_bvh.ops import raster
+from jax_bvh.ops import raster
 
 packed = raster.pack_raster(bvh, tris, leaf_size=16)
 hit_r, counts_r, overflow = raster.render_raster_xla(
@@ -66,25 +70,24 @@ tied = hm & (hit_r.prim_idx != base.prim_idx)
 assert np.allclose(hit_r.t[hm], base.t[hm], rtol=1e-4), "raster t mismatch"
 assert tied.sum() <= 0.001 * hm.sum() + 2, f"raster prim mismatches: {tied.sum()}"
 img_r = image.shade_barycentric(hit_r.prim_idx, hit_r.u, hit_r.v, W, H)
-image.write_png("/tmp/cornell_raster.png", img_r)
-print(f"raster agrees (ties: {int(tied.sum())}); wrote /tmp/cornell_raster.png")
+image.write_png("renders/cornell_raster.png", img_r)
+print(f"raster agrees (ties: {int(tied.sum())}); wrote renders/cornell_raster.png")
 
-# Pallas raster kernel (interpret mode) at reduced res
-from tpu_bvh.ops import raster_tpu
+# Triton raster kernel (interpret mode) at reduced res
+from jax_bvh.ops import raster_triton
 
 Wk = Hk = 128
 rays_k = camera.generate_rays(cam, Wk, Hk)
-hit_k, _ck, ovf_k = raster_tpu.render_raster_tpu(
-    packed, rays_k, t, Wk, Hk, cand_cap=64, pair_cap=512, group=4,
-    interpret=True,
+hit_k, _ck, ovf_k = raster_triton.render_raster_triton(
+    packed, rays_k, t, Wk, Hk, cand_cap=64, interpret=True,
 )
 hit_ok, _ = traverse.traverse_bvh2(bvh, tris, rays_k, t, variant="speculative")
 hk = np.asarray(hit_k.prim_idx)
 ho = np.asarray(hit_ok.prim_idx)
 assert not bool(ovf_k)
-assert np.array_equal(hk >= 0, ho >= 0), "pallas raster hit-mask mismatch"
+assert np.array_equal(hk >= 0, ho >= 0), "raster kernel hit-mask mismatch"
 mask = hk >= 0
 assert np.allclose(
     np.asarray(hit_k.t)[mask], np.asarray(hit_ok.t)[mask], rtol=1e-4
-), "pallas raster t mismatch"
-print("pallas raster kernel agrees (interpret mode)")
+), "raster kernel t mismatch"
+print("raster kernel agrees (interpret mode)")

@@ -1,7 +1,7 @@
 """HPLOC prefix-schedule sweep: SAH + merge-round count per (shift0, step).
 
-CPU-runnable (the XLA fallback path produces the same trees as the TPU
-kernel); round count is the TPU cost proxy (each round costs ~live width).
+Runs on the CPU; the trees are the same on every backend. Round count is
+the cost proxy: each round costs about the live cluster width.
 """
 import os
 import sys
@@ -15,16 +15,16 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from tpu_bvh.models import lbvh
-from tpu_bvh.models.ploc import _build
-from tpu_bvh.utils import scenes
-from tpu_bvh.utils.cost import sah_cost_bvh2
+from jax_bvh.models import lbvh
+from jax_bvh.models.ploc import _build
+from jax_bvh.utils import scenes
+from jax_bvh.utils.cost import sah_cost_bvh2
 
 
 def rounds_to_finish(tris, shift0, shift_step):
     """Count merge rounds by stepping the XLA _round loop manually."""
     from jax import lax
-    from tpu_bvh.ops import ploc as P
+    from jax_bvh.ops import ploc as P
 
     refs = lbvh.prim_refs_from_triangles(jnp.asarray(tris))
     codes, leaf_packed_t, _ = lbvh._sorted_leaves_packed(refs, True)
